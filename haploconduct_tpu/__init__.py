@@ -1,9 +1,9 @@
-"""haploconduct_tpu — TPU-native haplotype-aware overlap-graph assembler.
+"""haploconduct_tpu — haplotype-aware overlap-graph assembler on JAX.
 
-A from-scratch rebuild of HaploConduct (SAVAGE + POLYTE) designed for TPU
-hardware: the numeric hot loops (pairwise overlap verification, consensus
-base calling, k-mer candidate generation) run as batched JAX/Pallas kernels
-on device; the inherently sequential graph heuristics (orientation
+A from-scratch rebuild of HaploConduct (SAVAGE + POLYTE) for an
+accelerator (one or more NVIDIA GPUs): the numeric hot loops (pairwise
+overlap verification, k-mer candidate generation, the abundance EM) run as
+batched JAX programs on device; the inherently sequential graph heuristics (orientation
 labelling, cycle removal, Bron-Kerbosch clique enumeration) run on host
 (NumPy / native C++); multi-chip scale-out shards candidate batches over a
 `jax.sharding.Mesh` and merges verified edges with XLA collectives.

@@ -56,7 +56,8 @@ def cmd_savage(argv) -> int:
     ap.add_argument("--no_filtering", dest="filtering", action="store_false")
     ap.add_argument("--resume", action="store_true",
                     help="reuse completed stage checkpoints in the output dir")
-    ap.add_argument("--backend", default="jax", choices=["jax", "numpy", "native"])
+    ap.add_argument("--backend", default="auto",
+                    choices=["auto", "jax", "numpy", "native"])
     ap.add_argument("--profile_dir", default="",
                     help="capture a jax.profiler/xprof trace per stage")
     ap.add_argument("--verbose", action="store_true")
@@ -120,10 +121,11 @@ def cmd_polyte(argv) -> int:
     ap.add_argument("--diploid_overlap_len", type=int)
     ap.add_argument("--average_read_len", type=float)
     ap.add_argument("--max_tip_len", type=int)
-    ap.add_argument("--backend", default="jax", choices=["jax", "numpy", "native"])
+    ap.add_argument("--backend", default="auto",
+                    choices=["auto", "jax", "numpy", "native"])
     ap.add_argument("--candidates", default="auto",
                     choices=["auto", "host", "device"],
-                    help="per-iteration re-overlap engine (device = TPU sort-join)")
+                    help="per-iteration re-overlap engine (device = device k-mer sort-join)")
     ap.add_argument("--verbose", action="store_true")
     args = ap.parse_args(argv)
 
@@ -167,7 +169,8 @@ def cmd_polyte_split(argv) -> int:
     ap.add_argument("--diploid", action="store_true")
     ap.add_argument("--mismatch_rate", dest="merge_contigs", type=float, default=0.0)
     ap.add_argument("-o", "--outdir", default=".")
-    ap.add_argument("--backend", default="jax", choices=["jax", "numpy", "native"])
+    ap.add_argument("--backend", default="auto",
+                    choices=["auto", "jax", "numpy", "native"])
     args = ap.parse_args(argv)
     store = _load_store(args)
     cfg = PolyteSplitConfig(
@@ -209,7 +212,7 @@ def cmd_count_strains(argv) -> int:
     return 0
 
 
-USAGE = """HaploConduct-TPU: haplotype-aware genome assembly, TPU native.
+USAGE = """HaploConduct-TPU: haplotype-aware genome assembly on JAX.
 
 usage: haploconduct <command> [options]
 
@@ -229,6 +232,9 @@ def main(argv=None) -> int:
         print(USAGE)
         return 0
     cmd, rest = argv[0], argv[1:]
+    from .utils.jaxcache import enable_compile_cache
+
+    enable_compile_cache()
     if cmd == "savage":
         return cmd_savage(rest)
     if cmd == "polyte":

@@ -81,9 +81,8 @@ class ReadStore:
     def _add_unit(self, codes: np.ndarray, quals: np.ndarray) -> int:
         assert codes.shape == quals.shape
         # no-copy when already typed: units forwarded unchanged between
-        # iteration stores then SHARE their arrays, which the device-
-        # resident matrix cache (ops/device_cache.py) exploits; units are
-        # append-only and never mutated in place, so sharing is safe
+        # iteration stores then SHARE their arrays; units are append-only
+        # and never mutated in place, so sharing is safe
         self._unit_codes.append(np.ascontiguousarray(codes, dtype=np.int8))
         self._unit_quals.append(np.ascontiguousarray(quals, dtype=np.uint8))
         return len(self._unit_codes) - 1

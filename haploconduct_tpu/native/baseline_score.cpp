@@ -3,10 +3,9 @@
 // — phred->prob via pow() per position, per-position probability, log
 // accumulation, geometric-mean score) in a tight OpenMP parallel-for over
 // tasks, mirroring the reference's chunk parallelism
-// (src/EdgeCalculator.cpp:395-423). This is what bench.py's vs_baseline
-// compares the TPU kernel against; it is deliberately *faster* than the
-// real reference path (no string copies / vector push_backs), making the
-// reported speedup conservative.
+// (src/EdgeCalculator.cpp:395-423). bench.py times it beside the device
+// scorer; it is deliberately *faster* than the real reference path (no
+// string copies / vector push_backs).
 
 #define PY_SSIZE_T_CLEAN
 #include <Python.h>

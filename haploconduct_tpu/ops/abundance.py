@@ -183,6 +183,25 @@ class PseudoIndex:
         return cls
 
 
+def _em_run(M, cnt, inv_el, alpha0, iters: int):
+    """`iters` EM steps on device from alpha0: M (C, T) 0/1 membership,
+    cnt (C,) class counts, inv_el (T,) inverse effective lengths."""
+    import jax
+    import jax.numpy as jnp
+
+    # full f32 products: a GPU may otherwise run f32 matmuls in TF32,
+    # whose ~3 decimal digits would compound over hundreds of iterations
+    hi = jax.lax.Precision.HIGHEST
+
+    def body(_, alpha):
+        w = alpha * inv_el  # (T,)
+        denom = jnp.matmul(M, w, precision=hi)  # (C,)
+        resp = cnt / jnp.maximum(denom, 1e-30)  # (C,)
+        return w * jnp.matmul(M.T, resp, precision=hi)  # (T,) new counts
+
+    return jax.lax.fori_loop(0, iters, body, alpha0)
+
+
 def _em_device(membership: np.ndarray, counts: np.ndarray,
                eff_len: np.ndarray, iters: int) -> np.ndarray:
     """EM on device: membership (C, T) float32 0/1, counts (C,), returns
@@ -190,23 +209,16 @@ def _em_device(membership: np.ndarray, counts: np.ndarray,
     import jax
     import jax.numpy as jnp
 
+    from ..utils.jaxcache import enable_compile_cache
+
+    enable_compile_cache()
     M = jnp.asarray(membership, dtype=jnp.float32)
     cnt = jnp.asarray(counts, dtype=jnp.float32)
     inv_el = jnp.asarray(1.0 / eff_len, dtype=jnp.float32)
     T = M.shape[1]
-
-    @jax.jit
-    def run(alpha0):
-        def body(_, alpha):
-            w = alpha * inv_el  # (T,)
-            denom = M @ w  # (C,)
-            resp = cnt / jnp.maximum(denom, 1e-30)  # (C,)
-            return w * (M.T @ resp)  # (T,) new expected counts
-
-        return jax.lax.fori_loop(0, iters, body, alpha0)
-
     alpha0 = jnp.full((T,), float(counts.sum()) / max(T, 1), dtype=jnp.float32)
-    return np.asarray(run(alpha0), dtype=np.float64)
+    run = jax.jit(_em_run, static_argnums=4)
+    return np.asarray(run(M, cnt, inv_el, alpha0, iters), dtype=np.float64)
 
 
 def _em_numpy(membership: np.ndarray, counts: np.ndarray,

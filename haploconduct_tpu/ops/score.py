@@ -193,31 +193,88 @@ def _get_jax():
     import jax
     import jax.numpy as jnp
 
+    from ..utils.jaxcache import enable_compile_cache
+
+    enable_compile_cache()
     return jax, jnp
 
 
-def xla_segment_body(mismatch_thresh: float):
-    """Per-SEG-subtask scorer with the exact ABI/semantics of the Pallas
-    kernel: (comb int16 matrix, rowa, rowb, posa, bolen) -> per-subtask
-    (sum_log f32, counted i32, mismatches i32, rejected i32). Shared by the
-    single-device XLA fallback (score_tasks_jax) and the mesh-sharded path
-    (parallel/mesh.py), so EVERY f32 scoring path accumulates over at most
-    SEG=512 lanes — the width the RECHECK_MARGIN=2e-3 drift bound is
-    empirically pinned on (tests/test_score.py) — regardless of how long
-    the contigs grow (reference C++ accumulates in double,
-    src/EdgeCalculator.cpp:26-139; we bound f32 error structurally
-    instead)."""
-    jax, jnp = _get_jax()
+# --------------------------------------------------------------------------
+# Segment ABI shared by every device path
+# --------------------------------------------------------------------------
+#
+# Every task (row_a, row_b, pos) is decomposed on the host into SEG-lane
+# subtasks: subtask k compares a[pos + k*SEG:] against b[k*SEG:] over
+# min(SEG, L - k*SEG) lanes, and the per-subtask integers and f32 log sums
+# are added back per task in f64 (reduce_segments_to_tasks). So f32
+# accumulation never runs over more than SEG lanes, however long the
+# contigs grow; RECHECK_MARGIN is pinned on that width (tests/test_score.py).
+# The reference accumulates in C++ double (src/EdgeCalculator.cpp:26-139).
 
-    from .pallas_score import SEG
+SEG = 512  # compare lanes per subtask
+
+
+def pack_combined(codes: np.ndarray, quals: np.ndarray) -> np.ndarray:
+    """Combine (R, W) packed unit matrices into one (R, W) int16 matrix of
+    code | qual<<3 words (9 bits used), so a window is one gather per side.
+    The width stays the longest unit's: device bodies clamp their indices to
+    the row and mask lanes past each subtask's length."""
+    return codes.astype(np.int16) | (quals.astype(np.int16) << 3)
+
+
+def segment_tasks(row_a, row_b, pos, L):
+    """Decompose tasks into SEG-lane subtasks.
+
+    Returns (s_rowa, s_rowb, s_posa, s_bolen, task_bounds): s_posa is the
+    A-side window start pos + k*SEG, s_bolen packs (k << 10) | seg_len, and
+    task_bounds are np.add.reduceat boundaries mapping subtask outputs back
+    to tasks. Row ids stay full int32, so the stream addresses packed
+    matrices of any height. Degenerate tasks (L <= 0) get one zero-length
+    subtask so every task produces exactly one reduction slot.
+    """
+    L = np.maximum(L, 0)
+    nseg = np.maximum((L + SEG - 1) // SEG, 1).astype(np.int64)
+    total = int(nseg.sum())
+    task_of = np.repeat(np.arange(len(L), dtype=np.int64), nseg)
+    bounds = np.concatenate([[0], np.cumsum(nseg)[:-1]])
+    k = np.arange(total, dtype=np.int64) - np.repeat(bounds, nseg)
+    bo = k * SEG
+    seg_len = np.minimum(L[task_of] - bo, SEG)
+    s_rowa = row_a[task_of].astype(np.int32)
+    s_rowb = row_b[task_of].astype(np.int32)
+    s_posa = (pos[task_of].astype(np.int64) + bo).astype(np.int32)
+    s_bolen = ((k << 10) | seg_len).astype(np.int32)
+    return s_rowa, s_rowb, s_posa, s_bolen, bounds
+
+
+def task_lengths(unit_lens_by_row, row_a, row_b, pos):
+    """(len_a, len_b, pos64, L): per-task row lengths and compared length
+    (0 for pos >= len_a), as the segmenter and the reduction need them."""
+    lens = unit_lens_by_row.astype(np.int64)
+    len_a = lens[row_a]
+    len_b = lens[row_b]
+    pos64 = np.asarray(pos, dtype=np.int64)
+    L = np.minimum(len_a - pos64, len_b)
+    L = np.where(pos64 >= len_a, 0, L)
+    return len_a, len_b, pos64, L
+
+
+def xla_segment_body(mismatch_thresh: float):
+    """Per-subtask scorer: (comb int16 matrix, rowa, rowb, posa, bolen) ->
+    per-subtask (sum_log f32, counted i32, mismatches i32, rejected i32).
+    Shared by the single-device path (score_tasks_jax) and the mesh path
+    (parallel/mesh.py). The window is min(SEG, row width) lanes: a subtask
+    never compares more lanes than the longest unit has."""
+    jax, jnp = _get_jax()
 
     LOG10_OVER_10 = float(np.log(10.0) / 10.0)
 
     def body(comb, row_a, row_b, posa, bolen):
         rw = comb.shape[1]
+        win = min(SEG, rw)
         bo = ((bolen >> 10) << 9).astype(jnp.int32)
         lt = (bolen & 1023).astype(jnp.int32)
-        col = jax.lax.broadcasted_iota(jnp.int32, (1, SEG), 1)
+        col = jax.lax.broadcasted_iota(jnp.int32, (1, win), 1)
         a_idx = jnp.minimum(posa[:, None] + col, rw - 1)
         b_idx = jnp.minimum(bo[:, None] + col, rw - 1)
         a_w = jnp.take_along_axis(comb[row_a], a_idx, axis=1).astype(jnp.int32)
@@ -295,15 +352,8 @@ def score_tasks_jax(
     B = len(row_a)
     if B == 0:
         return score_tasks_numpy(codes, quals, unit_lens_by_row, row_a, row_b, pos)
-    from .pallas_score import pack_for_pallas, segment_tasks
-
-    combined = pack_for_pallas(codes, quals)
-    lens = unit_lens_by_row.astype(np.int64)
-    len_a = lens[row_a]
-    len_b = lens[row_b]
-    pos64 = np.asarray(pos, dtype=np.int64)
-    L = np.minimum(len_a - pos64, len_b)
-    L = np.where(pos64 >= len_a, 0, L)
+    combined = pack_combined(codes, quals)
+    len_a, len_b, pos64, L = task_lengths(unit_lens_by_row, row_a, row_b, pos)
     s_rowa, s_rowb, s_posa, s_bolen, bounds = segment_tasks(
         np.asarray(row_a, np.int64), np.asarray(row_b, np.int64), pos64, L)
     n_sub = len(s_rowa)

@@ -297,9 +297,9 @@ def combine_scores(
 # test/diagnostic instrumentation: counters of how many tasks/overlaps the
 # exactness machinery re-scored in f64 during the last verify_overlaps call
 RECHECK_STATS = {"tasks": 0, "overlaps": 0}
-# cumulative per-backend task counts (mesh-sharded, single-device pallas,
-# XLA-gather fallback, numpy oracle)
-BACKEND_COUNTS = {"mesh": 0, "pallas": 0, "xla": 0, "numpy": 0, "native": 0}
+# cumulative per-backend task counts (mesh-sharded device path, single-
+# device path, numpy oracle, native host engine)
+BACKEND_COUNTS = {"mesh": 0, "xla": 0, "numpy": 0, "native": 0}
 
 
 def verify_overlaps(
@@ -354,19 +354,14 @@ def verify_overlaps(
                 ts = _recheck_near_threshold(plan, ts, args, kw, s,
                                              NATIVE_RECHECK_MARGIN)
     else:
-        from .pallas_score import pallas_supported, score_tasks_pallas
         from ..parallel.mesh import device_count, sharded_score_tasks
 
         if device_count() > 1:
-            # production multi-chip path: subtask stream sharded over the
+            # several devices: the subtask stream is sharded over the
             # device mesh, packed matrices replicated (SURVEY §2f; replaces
-            # the OpenMP hot loop, src/EdgeCalculator.cpp:395-423); serves
-            # any matrix height (row ids are full int32)
+            # the OpenMP hot loop, src/EdgeCalculator.cpp:395-423)
             BACKEND_COUNTS["mesh"] += len(plan.row_first)
             ts = sharded_score_tasks(*args, **kw)
-        elif pallas_supported(packed.codes):
-            BACKEND_COUNTS["pallas"] += len(plan.row_first)
-            ts = score_tasks_pallas(*args, **kw)
         else:
             BACKEND_COUNTS["xla"] += len(plan.row_first)
             ts = score_tasks_jax(*args, **kw)

@@ -3,7 +3,7 @@
 The reference has NO distributed backend (SURVEY §2f): its scale-out axes
 are SAVAGE's random coverage patches (savage.py:286-342) and polyte-split's
 genomic regions (polyte-split.py:297-354), both through the filesystem.
-The TPU-native mapping: one jax.distributed process group across hosts,
+The mapping here: one jax.distributed process group across hosts,
 patches/regions round-robined over processes, per-patch candidate streams
 sharded over the global mesh inside verify_overlaps
 (parallel/mesh.sharded_score_tasks), and the (small) per-patch contig sets
@@ -23,7 +23,7 @@ def maybe_initialize() -> bool:
     """Initialize jax.distributed when launched as a multi-process job.
 
     Triggered by the standard coordinator env vars (JAX_COORDINATOR_ADDRESS
-    / COORDINATOR_ADDRESS, as set by TPU pod launchers) or an explicit
+    / COORDINATOR_ADDRESS, as set by cluster launchers) or an explicit
     HAPLO_DIST=1. Safe to call more than once."""
     import jax
 

@@ -97,3 +97,63 @@ def simulate_paired_reads(
             p2s.append(err(r2))
             quals.append(qual_char * read_len)
     return p1s, p2s, quals
+
+
+def reads_to_store(seqs: List[str], quals: List[str],
+                   pairs: Optional[Tuple[List[str], List[str], List[str]]] = None):
+    """ReadStore of single-end reads (ids 0..) then pairs (p1, p2, quals)."""
+    from ..core.reads import ReadStore
+
+    store = ReadStore()
+    for i, (sq, q) in enumerate(zip(seqs, quals)):
+        store.add_single(i, sq, q)
+    store.readcount_single = len(seqs)
+    if pairs is not None:
+        for j, (s1, s2, q) in enumerate(zip(*pairs)):
+            store.add_paired(len(seqs) + j, s1, q, s2, q)
+    return store
+
+
+def quasispecies(rng: np.random.Generator, genome_len: int, n_haps: int,
+                 divergence: float) -> List[str]:
+    """A master genome plus n_haps-1 strains, each `divergence` away from
+    it by substitutions (pairwise about twice that)."""
+    genome = random_genome(rng, genome_len)
+    return [genome] + [mutate_sequence(genome, rng, sub_rate=divergence)
+                       for _ in range(n_haps - 1)]
+
+
+def savage_patch_sample(seed: int = 0, genome_len: int = 10000,
+                        n_haps: int = 4, divergence: float = 0.03,
+                        total_cov: float = 667.0, read_len: int = 150,
+                        error_rate: float = 0.002):
+    """One SAVAGE de novo patch at the documented 500-1000x per patch
+    (savage/README.md:313-319): a viral-scale genome, a few strains a few
+    percent apart, single-end Illumina reads. The defaults give ~44,400
+    150 bp reads. Returns (store, haplotypes)."""
+    rng = np.random.default_rng(seed)
+    haps = quasispecies(rng, genome_len, n_haps, divergence)
+    seqs, quals = simulate_reads(haps, coverage=total_cov / n_haps,
+                                 read_len=read_len, rng=rng,
+                                 error_rate=error_rate)
+    return reads_to_store(seqs, quals), haps
+
+
+def savage_example_sample(seed: int = 0, genome_len: int = 9700,
+                          n_haps: int = 3, divergence: float = 0.03,
+                          n_singles: int = 2000, n_pairs: int = 200,
+                          read_len: int = 250, insert_size: int = 600,
+                          error_rate: float = 0.002):
+    """A sample shaped like SAVAGE's bundled example (savage/README.md:
+    303-310: 2,000 single-end reads plus ~200 pairs over an HIV-sized genome,
+    run with `-m 200 --split 1`). Returns (store, haplotypes)."""
+    rng = np.random.default_rng(seed)
+    haps = quasispecies(rng, genome_len, n_haps, divergence)
+    seqs, quals = simulate_reads(
+        haps, coverage=n_singles / n_haps * read_len / genome_len,
+        read_len=read_len, rng=rng, error_rate=error_rate)
+    pairs = simulate_paired_reads(
+        haps, coverage=n_pairs / n_haps * 2 * read_len / genome_len,
+        read_len=read_len, insert_size=insert_size,
+        insert_std=insert_size // 10, rng=rng, error_rate=error_rate)
+    return reads_to_store(seqs, quals, pairs), haps

@@ -55,7 +55,7 @@ class PolyteConfig:
     original_PE_count: int = -1
     backend: str = "auto"
     kmer_k: int = 20
-    # per-iteration re-overlap engine: "auto" uses the TPU sort-join
+    # per-iteration re-overlap engine: "auto" uses the device sort-join
     # (ops/kmer_device.py) for exact passes when an accelerator is present,
     # host k-mer join otherwise; "host"/"device" force one
     candidates: str = "auto"
@@ -120,19 +120,16 @@ def _resolve_engine(engine: str, min_overlap_len: int, sfo_err: float,
 
 
 def _jax_accelerator() -> bool:
-    try:
-        import jax
+    import jax
 
-        return jax.default_backend() not in ("cpu",)
-    except Exception:  # jax unavailable/misconfigured -> host engine
-        return False
+    return jax.default_backend() != "cpu"
 
 
 def single_end_candidates(store: ReadStore, min_overlap_len: int, sfo_err: float,
                           k: int = 20, engine: str = "host") -> np.ndarray:
     seqs = [store.unit_codes(store.unit1[i]) for i in range(len(store))]
     if _resolve_engine(engine, min_overlap_len, sfo_err, len(seqs)) == "device":
-        # TPU sort-join (replaces the reference's per-iteration rust-overlaps
+        # device sort-join (replaces the reference's per-iteration rust-overlaps
         # rerun, polyte.py:739-746); identical verified output to the host
         # engine for exact passes (see _device_candidates_ok)
         from ..ops.kmer_device import find_overlap_candidates_device

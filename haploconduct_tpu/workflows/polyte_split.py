@@ -161,7 +161,7 @@ def run_polyte_split(store: ReadStore, cfg: PolyteSplitConfig) -> PolyteSplitRes
             # per-region failures are tolerated (polyte-split.py:537-540)
             return None
 
-    # multi-host: regions round-robined over jax processes (the TPU-native
+    # multi-host: regions round-robined over jax processes (the device
     # mapping of polyte-split's multiprocessing.Pool, polyte-split.py:335-
     # 354); results allgathered so the final reference-guided pass runs
     # replicated on every host

@@ -177,3 +177,31 @@ def test_classify_all_matches_per_read():
     assert got_counts == expected
     for key, mem in got_members.items():
         assert key == mem.tobytes()
+
+
+def test_em_products_run_at_highest_precision():
+    """Both EM products reach dot_general with Precision.HIGHEST, so a GPU
+    cannot run them in TF32."""
+    import jax
+    import jax.numpy as jnp
+
+    from haploconduct_tpu.ops.abundance import _em_run
+
+    M = jnp.ones((6, 3), jnp.float32)
+    jaxpr = jax.make_jaxpr(_em_run, static_argnums=4)(
+        M, jnp.ones(6), jnp.ones(3), jnp.ones(3), 5)
+
+    def dots(jp):
+        for eqn in jp.eqns:
+            if eqn.primitive.name == "dot_general":
+                yield eqn
+            for v in eqn.params.values():
+                inner = getattr(v, "jaxpr", None)
+                if inner is not None:
+                    yield from dots(getattr(inner, "jaxpr", inner))
+
+    found = list(dots(jaxpr.jaxpr))
+    assert len(found) == 2
+    hi = jax.lax.Precision.HIGHEST
+    for eqn in found:
+        assert eqn.params["precision"] == (hi, hi), eqn.params["precision"]

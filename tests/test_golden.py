@@ -1,19 +1,15 @@
-"""Golden regression: full de novo stage a on savage/example must keep
-producing the EXACT contig set that was proven bit-identical to the
-reference binary (docs/PARITY.md; the slow proof itself lives in
-test_reference_parity.py behind RUN_SLOW). This is the fast default-suite
-guard: candidate count, iteration count, per-contig lengths, and a SHA256
-over the sorted (seq, qual) records.
+"""Golden regression: full de novo stage a on a seeded example-scale sample
+(utils/simulate.py:savage_example_sample, shaped like SAVAGE's bundled
+example: 2,000 single-end reads plus ~200 pairs, `-m 200`) must keep
+producing the exact contig set the f64 oracle (backend="numpy") produced
+when the fixture was pinned: candidate count, iteration count, per-contig
+lengths, and a SHA256 over the sorted (seq, qual) records.
 
-Parametrized over the two host backends — "numpy" (the f64 oracle) and
-"native" (the C++ OpenMP engine whose decisions are made exact by the
-RECHECK_MARGIN machinery) — so both production host paths are pinned to
-the same bit-identical output.
-
-Runtime ~1 min on 2 vCPUs — by far the slowest default test, kept because
-it end-to-end covers candidates -> verification -> graph -> cliques ->
-consensus -> FNO across all 8 iterations (candidates and the golden
-fixture are computed once per session).
+Parametrized over the two host backends, "numpy" (the oracle) and "native"
+(the C++ OpenMP engine whose decisions are made exact by the
+RECHECK_MARGIN machinery), so both host paths are pinned to the same
+output. chip_smoke.py makes the same comparison for the device path on the
+card. Regenerate the fixture with `python tests/test_golden.py`.
 """
 
 import hashlib
@@ -22,42 +18,31 @@ import os
 
 import pytest
 
-EXAMPLE = "/root/reference/savage/example/input_fas"
-FIXTURE = os.path.join(os.path.dirname(__file__), "fixtures",
+FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures",
                        "stage_a_denovo_golden.json")
+SAMPLE = dict(seed=0)
+MIN_OVERLAP = 200
+MAX_TIP = 250
 
 
-@pytest.fixture(scope="module")
-def example_inputs():
-    from haploconduct_tpu.core.reads import ReadStore
+def sample_and_candidates():
+    from haploconduct_tpu.utils.simulate import savage_example_sample
     from haploconduct_tpu.workflows.savage import denovo_candidates
 
-    with open(FIXTURE) as f:
-        golden = json.load(f)
-    store = ReadStore.from_files(
-        singles=f"{EXAMPLE}/singles.fastq",
-        paired1=f"{EXAMPLE}/paired1.fastq", paired2=f"{EXAMPLE}/paired2.fastq")
-    overlaps = denovo_candidates(store, 200, 50)
-    assert len(overlaps) == golden["n_candidates"]
-    return store, overlaps, golden
+    store, _ = savage_example_sample(**SAMPLE)
+    return store, denovo_candidates(store, MIN_OVERLAP, 50)
 
 
-@pytest.mark.parametrize("backend", ["numpy", "native"])
-def test_stage_a_denovo_golden(example_inputs, backend):
+def stage_a_summary(store, overlaps, backend):
     from haploconduct_tpu.assemble.stages import StageParams, run_stage
 
-    store, overlaps, golden = example_inputs
-    params = StageParams(stage="a", min_overlap_len=200, edge_threshold=0.97,
-                         remove_branches=True, max_tip_len=415,
-                         original_readcount=len(store), backend=backend)
+    params = StageParams(stage="a", min_overlap_len=MIN_OVERLAP,
+                         edge_threshold=0.97, remove_branches=True,
+                         max_tip_len=MAX_TIP, original_readcount=len(store),
+                         backend=backend)
     res = run_stage(params, store, overlaps)
-    assert res.iterations == golden["iterations"]
-
     st = res.store
     lens = sorted((st.read_len(i) for i in range(len(st))), reverse=True)
-    assert lens == golden["lengths"]
-    assert sum(lens) == golden["total_bp"]
-
     recs = []
     for i in range(len(st)):
         if st.is_paired[i]:
@@ -66,5 +51,36 @@ def test_stage_a_denovo_golden(example_inputs, backend):
         else:
             recs.append(st.seq_str(i, 0) + "|" + st.phred_str(i, 0))
     recs.sort()
-    digest = hashlib.sha256("\n".join(recs).encode()).hexdigest()
-    assert digest == golden["records_sha256"]
+    return {"n_candidates": int(len(overlaps)), "iterations": res.iterations,
+            "lengths": lens, "total_bp": int(sum(lens)),
+            "records_sha256": hashlib.sha256("\n".join(recs).encode()).hexdigest()}
+
+
+@pytest.fixture(scope="module")
+def example_inputs():
+    with open(FIXTURE) as f:
+        golden = json.load(f)
+    store, overlaps = sample_and_candidates()
+    assert len(overlaps) == golden["n_candidates"]
+    return store, overlaps, golden
+
+
+@pytest.mark.parametrize("backend", ["numpy", "native"])
+def test_stage_a_denovo_golden(example_inputs, backend):
+    store, overlaps, golden = example_inputs
+    got = stage_a_summary(store, overlaps, backend)
+    assert got["iterations"] == golden["iterations"]
+    assert got["lengths"] == golden["lengths"]
+    assert got["total_bp"] == golden["total_bp"]
+    assert got["records_sha256"] == golden["records_sha256"]
+
+
+if __name__ == "__main__":
+    store, overlaps = sample_and_candidates()
+    summary = stage_a_summary(store, overlaps, "numpy")
+    summary["sample"] = {"generator": "savage_example_sample", **SAMPLE,
+                         "min_overlap_len": MIN_OVERLAP, "backend": "numpy"}
+    with open(FIXTURE, "w") as f:
+        json.dump(summary, f, indent=1)
+    print(f"pinned {len(summary['lengths'])} contigs, "
+          f"{summary['n_candidates']} candidates -> {FIXTURE}")

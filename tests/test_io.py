@@ -8,13 +8,36 @@ from haploconduct_tpu.io import (
 from haploconduct_tpu.io.sfo import SFO_DTYPE, sfo_to_overlaps
 from haploconduct_tpu.io.subreads import OriginalIndex, read_subreads, write_subreads
 
-EXAMPLE = "/root/reference/savage/example/input_fas"
 
 
-def test_fastq_roundtrip(tmp_path):
-    ids, seqs, phreds = read_fastq(f"{EXAMPLE}/singles.fastq")
-    assert len(ids) == len(seqs) == len(phreds)
+@pytest.fixture
+def example_files(tmp_path):
+    """The seeded example-scale sample written as SAVAGE's input files:
+    singles.fastq, paired1.fastq, paired2.fastq and the master genome."""
+    from haploconduct_tpu.utils.simulate import savage_example_sample
+
+    store, haps = savage_example_sample(seed=0)
+    ns = store.readcount_single
+    single = list(range(ns))
+    paired = list(range(ns, len(store)))
+    write_fastq(tmp_path / "singles.fastq", [str(i) for i in single],
+                [store.seq_str(i, 0) for i in single],
+                [store.phred_str(i, 0) for i in single])
+    for end in (1, 2):
+        write_fastq(tmp_path / f"paired{end}.fastq",
+                    [str(i - ns) for i in paired],
+                    [store.seq_str(i, end) for i in paired],
+                    [store.phred_str(i, end) for i in paired])
+    write_fasta(tmp_path / "ref.fasta", ["master"], [haps[0]])
+    return tmp_path, store
+
+
+def test_fastq_roundtrip(example_files, tmp_path):
+    d, store = example_files
+    ids, seqs, phreds = read_fastq(d / "singles.fastq")
+    assert len(ids) == len(seqs) == len(phreds) == store.readcount_single
     assert ids[0] == "0"
+    assert seqs[0] == store.seq_str(0, 0) and phreds[0] == store.phred_str(0, 0)
     assert set("".join(seqs[:50])) <= set("ACGTN")
     out = tmp_path / "roundtrip.fastq"
     write_fastq(out, ids, seqs, phreds)
@@ -22,18 +45,21 @@ def test_fastq_roundtrip(tmp_path):
     assert ids2 == ids and seqs2 == seqs and phreds2 == phreds
 
 
-def test_paired_files_align():
-    ids1, seqs1, _ = read_fastq(f"{EXAMPLE}/paired1.fastq")
-    ids2, seqs2, _ = read_fastq(f"{EXAMPLE}/paired2.fastq")
+def test_paired_files_align(example_files):
+    d, store = example_files
+    ids1, seqs1, _ = read_fastq(d / "paired1.fastq")
+    ids2, seqs2, _ = read_fastq(d / "paired2.fastq")
     assert ids1 == ids2
-    assert len(ids1) == 200
+    assert len(ids1) == len(store) - store.readcount_single > 150
+    assert all(len(a) == len(b) for a, b in zip(seqs1, seqs2))
 
 
-def test_fasta_roundtrip(tmp_path):
-    ids, seqs = read_fasta("/root/reference/savage/example/hiv-ref.fasta")
+def test_fasta_roundtrip(example_files, tmp_path):
+    d, _ = example_files
+    ids, seqs = read_fasta(d / "ref.fasta")
     assert len(ids) == 1
     assert len(seqs[0]) > 9000
-    out = tmp_path / "ref.fasta"
+    out = tmp_path / "ref2.fasta"
     write_fasta(out, ids, seqs)
     ids2, seqs2 = read_fasta(out)
     assert ids2 == ids and seqs2 == seqs

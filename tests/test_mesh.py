@@ -95,7 +95,7 @@ def test_verify_overlaps_routes_through_mesh():
 
 def test_full_stage_mesh_vs_oracle_byte_identical():
     """run_stage on the 8-device mesh == the single-device f64 oracle run,
-    contig for contig, byte for byte (the VERDICT r1 acceptance check)."""
+    contig for contig, byte for byte."""
     from haploconduct_tpu.assemble.stages import StageParams, run_stage
     from haploconduct_tpu.io.sfo import sfo_to_overlaps
     from haploconduct_tpu.ops.kmer import find_overlap_candidates

@@ -36,7 +36,7 @@ def test_umap_order_depends_only_on_sequence():
 
 
 def test_umap_order_canary_fixture():
-    """Recorded-fixture canary (VERDICT r2 weak #6): reference_order mode
+    """Recorded-fixture canary: reference_order mode
     assumes the LOCAL libstdc++'s unordered_map hash policy matches the one
     the reference binary was built against. The fixture pins the replayed
     iteration order for sequences crossing several prime bucket-growth
@@ -95,7 +95,7 @@ def test_ref_order_cliques_isolated_vertices_are_singletons():
 
 
 def test_ref_order_canary_fixture():
-    """Recorded-fixture canary (VERDICT r3 task 8): pins the reference qc
+    """Recorded-fixture canary: pins the reference qc
     binary's exact clique EMISSION ORDER (degeneracy BK,
     quick-cliques/src/DegeneracyAlgorithm.cpp) for 8 random graphs spanning
     sparse/dense/empty regimes, so `enumerate_cliques_ref` is guarded in the

@@ -44,7 +44,7 @@ def test_polyte_diploid_synthetic():
 
 def test_polyte_device_candidates_match_host():
     """The per-iteration re-overlap engines must be interchangeable: a full
-    POLYTE run with candidates="device" (TPU sort-join, forced on the CPU
+    POLYTE run with candidates="device" (device sort-join, forced on the CPU
     jax backend here) produces the same contigs as candidates="host"."""
     from haploconduct_tpu.workflows.polyte import PolyteConfig, run_polyte
 

@@ -1,4 +1,4 @@
-"""Profile a synthetic N-x-scale SAVAGE stage-a run (VERDICT r1 task 4).
+"""Profile a synthetic N-x-scale SAVAGE stage-a run.
 
 Generates ~SCALE x the bundled example's read count from two synthetic
 haplotypes, runs candidates + run_stage under cProfile, and prints the top
@@ -62,13 +62,5 @@ t2 = time.time()
 print(f"stage a: {t2-t1:.1f}s, {len(res.store)} contigs, {res.iterations} iterations")
 print("phases:", {k: round(v, 2) for k, v in sorted(
     res.phase_times.items(), key=lambda kv: -kv[1])})
-from haploconduct_tpu.ops.device_cache import TRANSFER_STATS
-if TRANSFER_STATS["iterations"]:
-    full, up = TRANSFER_STATS["full_bytes"], TRANSFER_STATS["uploaded_bytes"]
-    print(f"device-cache transfers: {up/1e6:.1f}MB uploaded vs "
-          f"{full/1e6:.1f}MB full re-upload ({full/max(up,1):.1f}x saved) "
-          f"over {TRANSFER_STATS['iterations']} uploads; "
-          f"reused {TRANSFER_STATS['reused_rows']} rows, "
-          f"re-sent {TRANSFER_STATS['changed_rows']}")
 st = pstats.Stats(prof)
 st.sort_stats("cumulative").print_stats(TOP)
